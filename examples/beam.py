@@ -15,10 +15,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ngsamg_tpu import AMGOptions, AMGPreconditioner, SpecOpt
-from ngsamg_tpu.config import CoarsenType, ProlType, SmootherType
-from ngsamg_tpu.utils import fem
-from ngsamg_tpu.utils.jaxcfg import enable_persistent_cache
+from ngsamg import AMGOptions, AMGPreconditioner, SpecOpt
+from ngsamg.config import CoarsenType, ProlType, SmootherType
+from ngsamg.utils import fem
+from ngsamg.utils.jaxcfg import enable_persistent_cache
 
 enable_persistent_cache()
 

@@ -11,9 +11,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import ngsamg_tpu.api as NgsAMG
-from ngsamg_tpu.utils import fem
-from ngsamg_tpu.utils.jaxcfg import enable_persistent_cache
+import ngsamg.api as NgsAMG
+from ngsamg.utils import fem
+from ngsamg.utils.jaxcfg import enable_persistent_cache
 
 enable_persistent_cache()
 

@@ -17,10 +17,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ngsamg_tpu import AMGOptions
-from ngsamg_tpu.precond.stokes import StokesAMG, StokesHDGEmbeddedAMG
-from ngsamg_tpu.utils import stokes_fem
-from ngsamg_tpu.utils.jaxcfg import enable_persistent_cache
+from ngsamg import AMGOptions
+from ngsamg.precond.stokes import StokesAMG, StokesHDGEmbeddedAMG
+from ngsamg.utils import stokes_fem
+from ngsamg.utils.jaxcfg import enable_persistent_cache
 
 enable_persistent_cache()
 

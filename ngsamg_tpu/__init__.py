@@ -1,40 +1,39 @@
-"""ngsamg_tpu — TPU-native algebraic multigrid framework.
+"""Former import name of :mod:`ngsamg`, kept so that existing imports
+keep working.
 
-A from-scratch re-creation of the capabilities of NgsAMG (auxiliary-topology
-agglomeration AMG for H1 / elasticity / Stokes problems) designed for TPU:
-host-side vectorized setup producing a static level pytree, JAX/XLA/Pallas
-device solve phase, and `jax.sharding`-based multi-chip scaling.
-
-Public API:
-    AMGPreconditioner / amg_preconditioner — strict-algebraic-mode front-end
-    AMGOptions, options_from_flags, SpecOpt — configuration
-    apps.h1.H1Energy, apps.elasticity.ElasticityEnergy — PDE energies
-    utils.fem — test/benchmark problem generators
+Importing this package or any ``<this package>.x.y`` gives the very
+module object that ``import ngsamg.x.y`` gives: no module is loaded
+twice, so classes and options compare equal under either name.
 """
 
-from .config import (
-    AMGOptions,
-    CoarsenType,
-    CoarseSolveType,
-    CycleType,
-    ProlType,
-    SmootherType,
-    SpecOpt,
-    options_from_flags,
-)
-from .precond.amg import AMGPreconditioner, amg_preconditioner
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-__version__ = "0.1.0"
+import ngsamg
 
-__all__ = [
-    "AMGOptions",
-    "AMGPreconditioner",
-    "amg_preconditioner",
-    "CoarsenType",
-    "CoarseSolveType",
-    "CycleType",
-    "ProlType",
-    "SmootherType",
-    "SpecOpt",
-    "options_from_flags",
-]
+_OLD = __name__
+_NEW = ngsamg.__name__
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.x.y`` to ``ngsamg.x.y``."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        real = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        spec.loader_state = real.__spec__
+        return real
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the real module
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = ngsamg

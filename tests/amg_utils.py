@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ngsamg_tpu import AMGOptions, AMGPreconditioner
+from ngsamg import AMGOptions, AMGPreconditioner
 
 
 def solve_and_check(

@@ -9,24 +9,24 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from ngsamg_tpu import AMGOptions, SpecOpt, options_from_flags
-from ngsamg_tpu.apps.h1 import H1Energy
-from ngsamg_tpu.coarsen import pairwise
-from ngsamg_tpu.coarsen.mis import mis_aggregate
-from ngsamg_tpu.config import SmootherType
-from ngsamg_tpu.mesh.topo import AlgebraicMesh, map_edges
-from ngsamg_tpu.smoothers.coloring import jones_plassmann_coloring
-from ngsamg_tpu.sparse import bell
-from ngsamg_tpu.sparse.host import (
+from ngsamg import AMGOptions, SpecOpt, options_from_flags
+from ngsamg.apps.h1 import H1Energy
+from ngsamg.coarsen import pairwise
+from ngsamg.coarsen.mis import mis_aggregate
+from ngsamg.config import SmootherType
+from ngsamg.mesh.topo import AlgebraicMesh, map_edges
+from ngsamg.smoothers.coloring import jones_plassmann_coloring
+from ngsamg.sparse import bell
+from ngsamg.sparse.host import (
     block_diagonal_fast,
     block_norm_graph,
     csr_rowwise_argmax,
     csr_rowwise_max,
     pad_to_ell,
 )
-from ngsamg_tpu.transfer.galerkin import rap
-from ngsamg_tpu.transfer.prolongation import piecewise_prol, smoothed_prol
-from ngsamg_tpu.utils import fem
+from ngsamg.transfer.galerkin import rap
+from ngsamg.transfer.prolongation import piecewise_prol, smoothed_prol
+from ngsamg.utils import fem
 
 
 def _rand_spd(n, seed=0, density=0.1):
@@ -192,7 +192,7 @@ def test_smoothed_prol_preserves_constants_after_truncation():
 
 def test_native_rap_matches_scipy():
     """Fused native Gustavson P^T A P == scipy products (f64 exact)."""
-    import ngsamg_tpu.native as nat
+    import ngsamg.native as nat
 
     if not nat.HAVE_NATIVE:
         import pytest
@@ -200,7 +200,7 @@ def test_native_rap_matches_scipy():
         pytest.skip("native extension not built")
     import scipy.sparse as sp
 
-    from ngsamg_tpu.utils import fem
+    from ngsamg.utils import fem
 
     p = fem.unstructured_poisson(16, dim=3)
     rng = np.random.default_rng(0)
@@ -240,9 +240,9 @@ def test_rap_matches_dense():
 def test_smoother_reduces_energy_error(kind):
     import jax.numpy as jnp
 
-    from ngsamg_tpu.smoothers.build import build_smoother, plan_row_order
-    from ngsamg_tpu.smoothers.core import smooth, smooth_back
-    from ngsamg_tpu.config import SmootherOptions
+    from ngsamg.smoothers.build import build_smoother, plan_row_order
+    from ngsamg.smoothers.core import smooth, smooth_back
+    from ngsamg.config import SmootherOptions
 
     p = fem.poisson_2d(16)
     opts = SmootherOptions(type=kind)
@@ -273,9 +273,9 @@ def test_gs_split_matches_sliced(bs):
     same math, different matrix layout (see GSSmoother docstring)."""
     import jax.numpy as jnp
 
-    from ngsamg_tpu.smoothers.build import build_smoother, plan_row_order
-    from ngsamg_tpu.smoothers.core import smooth, smooth_back
-    from ngsamg_tpu.config import SmootherOptions
+    from ngsamg.smoothers.build import build_smoother, plan_row_order
+    from ngsamg.smoothers.core import smooth, smooth_back
+    from ngsamg.config import SmootherOptions
 
     if bs == 1:
         p = fem.poisson_2d(14)
@@ -350,7 +350,7 @@ def test_options_from_flags():
 
 
 def test_elmat_energy_mode():
-    from ngsamg_tpu import AMGOptions, AMGPreconditioner
+    from ngsamg import AMGOptions, AMGPreconditioner
 
     prob, dnums, elmats = fem.poisson_2d_elmats(32)
     pc = AMGPreconditioner(
@@ -365,8 +365,8 @@ def test_elmat_energy_mode():
 
 def test_elmat_accumulator_matches_matrix_graph():
     """ALG-variant accumulation reproduces the assembled off-diag pattern."""
-    from ngsamg_tpu.apps.elmat import ElmatAccumulator
-    from ngsamg_tpu.apps.h1 import H1Energy
+    from ngsamg.apps.elmat import ElmatAccumulator
+    from ngsamg.apps.h1 import H1Energy
 
     prob, dnums, elmats = fem.poisson_2d_elmats(12)
     acc = ElmatAccumulator(prob.n, variant="alg")
@@ -383,7 +383,7 @@ def test_elmat_accumulator_matches_matrix_graph():
 
 
 def test_block_gs_reduces_error():
-    import ngsamg_tpu.api as NgsAMG
+    import ngsamg.api as NgsAMG
 
     p = fem.poisson_2d(16)
     # blocks = 4x4 patches of the lattice (arbitrary non-overlapping blocks)
@@ -410,8 +410,8 @@ def test_block_gs_reduces_error():
 
 
 def test_batched_pencil_matches_numpy():
-    from ngsamg_tpu.apps.elasticity import _pencil_extreme_eig as np_pencil
-    from ngsamg_tpu.ops import batched_la as bla
+    from ngsamg.apps.elasticity import _pencil_extreme_eig as np_pencil
+    from ngsamg.ops import batched_la as bla
 
     rng = np.random.default_rng(3)
     X = rng.standard_normal((20, 6, 6))
@@ -448,10 +448,10 @@ def test_implicit_lattice_transfer_matches_explicit_P():
     scipy P used for the Galerkin product (hierarchy consistency)."""
     import jax.numpy as jnp
 
-    from ngsamg_tpu import AMGPreconditioner, AMGOptions
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
-    from ngsamg_tpu.sparse.formats import matvec
-    from ngsamg_tpu.transfer.lattice_transfer import LatticeProlongation
+    from ngsamg import AMGPreconditioner, AMGOptions
+    from ngsamg.config import SmootherOptions, SmootherType
+    from ngsamg.sparse.formats import matvec
+    from ngsamg.transfer.lattice_transfer import LatticeProlongation
 
     p = fem.poisson_3d(12)
     opts = AMGOptions()
@@ -461,8 +461,8 @@ def test_implicit_lattice_transfer_matches_explicit_P():
     assert isinstance(lev.P, LatticeProlongation)
     # reconstruct the reference explicit P from the transfer metadata
     # (the stencil fast path no longer materializes P on the host)
-    from ngsamg_tpu.coarsen.lattice import detect_lattice
-    from ngsamg_tpu.transfer.lattice_transfer import host_lattice_prol
+    from ngsamg.coarsen.lattice import detect_lattice
+    from ngsamg.transfer.lattice_transfer import host_lattice_prol
 
     meta = pc.setup_levels_[0].lattice_transfer
     idx, dims = detect_lattice(p.coords)
@@ -495,7 +495,7 @@ def test_dia_sym_half_matvec_matches_full():
     """Half-storage symmetric DIA (XLA path) == full-storage matvec."""
     import jax.numpy as jnp
 
-    from ngsamg_tpu.sparse.formats import DiaMatrix, matvec
+    from ngsamg.sparse.formats import DiaMatrix, matvec
 
     rng = np.random.default_rng(3)
     n = 5000
@@ -531,11 +531,11 @@ def test_dia_sym_half_matvec_matches_full():
 def test_dia_from_clamped_sym_halving_end_to_end():
     """A big uniform lattice hierarchy halves its DIA levels and still
     converges identically."""
-    from ngsamg_tpu import AMGOptions, AMGPreconditioner
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
-    from ngsamg_tpu.utils import fem
+    from ngsamg import AMGOptions, AMGPreconditioner
+    from ngsamg.config import SmootherOptions, SmootherType
+    from ngsamg.utils import fem
 
-    import ngsamg_tpu.sparse.formats as fmts
+    import ngsamg.sparse.formats as fmts
 
     prob = fem.poisson_3d(48)
     opts = AMGOptions()
@@ -548,7 +548,7 @@ def test_dia_from_clamped_sym_halving_end_to_end():
         ).setup()
     finally:
         fmts._DIA_SYM_MIN_ROWS = old
-    from ngsamg_tpu.sparse.formats import DiaMatrix
+    from ngsamg.sparse.formats import DiaMatrix
 
     halved = [
         l.A for l in pc.op.levels
@@ -569,7 +569,7 @@ def test_cluster_correction_detects_and_fixes_defective_cluster():
     """
     import scipy.sparse as sp
 
-    from ngsamg_tpu.smoothers.cluster_corr import (
+    from ngsamg.smoothers.cluster_corr import (
         cluster_apply,
         detect_clusters,
     )
@@ -630,7 +630,7 @@ def test_cluster_correction_no_clusters_on_regular_mesh():
     p = fem.poisson_2d(16)
     import scipy.sparse as sp
 
-    from ngsamg_tpu.smoothers.cluster_corr import detect_clusters
+    from ngsamg.smoothers.cluster_corr import detect_clusters
 
     assert detect_clusters(sp.csr_matrix(p.A)) is None
 
@@ -639,7 +639,7 @@ def test_cluster_correction_unstructured_iterations():
     """The 3D perturbed-Delaunay problem converges within the reference
     budget WITH the correction; without it the sliver clusters pin
     lambda_min (36 vs 14-16 iterations measured at 104k DoF)."""
-    from ngsamg_tpu import AMGPreconditioner
+    from ngsamg import AMGPreconditioner
 
     p = fem.unstructured_poisson(20, dim=3)
     o = AMGOptions(dtype="float64")
@@ -660,7 +660,7 @@ def test_elmat_lsq_variant():
     on P1 Laplace elements the replacement basis fits the element matrix
     EXACTLY, so LSQ weights equal the (negated) off-diagonals, and the
     resulting preconditioner solves within budget."""
-    from ngsamg_tpu.apps.elmat import ElmatAccumulator
+    from ngsamg.apps.elmat import ElmatAccumulator
 
     p, dnums, elmats = fem.poisson_2d_elmats(16)
     nv = p.n
@@ -669,7 +669,7 @@ def test_elmat_lsq_variant():
     mesh = acc.finalize(p.coords)
     # P1 Laplace: E = w1 R_01 + w2 R_02 + w3 R_12 exactly (rowsums 0)
     # -> fitted weight == -E[a,b] summed over elements == assembled -A_ij
-    from ngsamg_tpu import AMGOptions, AMGPreconditioner
+    from ngsamg import AMGOptions, AMGPreconditioner
 
     pc = AMGPreconditioner(
         p.A,
@@ -700,7 +700,7 @@ def test_elmat_lsq_variant():
 def _stack_matvec_parity(A, chunk, tile_m=8):
     import jax.numpy as jnp
 
-    from ngsamg_tpu.sparse import formats
+    from ngsamg.sparse import formats
 
     st = formats.tile_ell_stack_from_scipy(
         A, np.float32, tile_m=tile_m, chunk=chunk
@@ -739,7 +739,7 @@ def test_tile_ell_stack_long_tail_buckets():
     A[:8, ::16] = 1.0  # one very wide tile
     A = (A + A.T + 8 * sp.eye(n)).tocsr()
 
-    from ngsamg_tpu.sparse import formats
+    from ngsamg.sparse import formats
 
     perm = formats.plan_reorder(A, 1, 8, tile_sort_chunk=4)
     assert perm is not None
@@ -757,7 +757,7 @@ def test_tile_ell_stack_long_tail_buckets():
 def test_tile_ell_stack_in_pipeline():
     # choose_format routes bs==1 non-DIA levels to the stack when a
     # stack_chunk is passed (single-device placements, amg._compile_device)
-    from ngsamg_tpu.sparse import formats
+    from ngsamg.sparse import formats
 
     p = fem.unstructured_poisson(14, dim=3)
     A = p.A.tocsr()
@@ -772,17 +772,16 @@ def test_tile_ell_stack_in_pipeline():
 def test_matvec_slabbed_matches_plain():
     """Row-slab f64 matvec == plain matvec (bitwise per-slab einsums).
 
-    The slab path bounds the transient footprint of XLA's emulated-f64
-    gather+einsum (no native f64 dot on TPU: the splits are ~4x the f64
-    data bytes — a 1.25M-DoF elasticity mixed solve compile-OOM'd on a
-    16G chip without it). Reference role: all-f64 SpMV of the solve
+    The slab path bounds the transient footprint of an f64 gather+einsum
+    whose gathered operand XLA materializes (f64_matvec_slabs sizes the
+    slabs from the data bytes). Reference role: all-f64 SpMV of the solve
     phase (utils_sparseLA.hpp SparseMatrix::Mult).
     """
     import jax
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from ngsamg_tpu.sparse import bell, formats
+    from ngsamg.sparse import bell, formats
 
     rng = np.random.default_rng(3)
     with jax.enable_x64(True):
@@ -817,8 +816,8 @@ def test_big_soc_acceptance_check():
     matching theta a healthy compact mesh keeps (almost) all matches; at
     an absurd rho every >=3-member union is rejected — the check is live
     and monotone in rho."""
-    from ngsamg_tpu.apps.elasticity import ElasticityEnergy
-    from ngsamg_tpu.coarsen.pairwise import (
+    from ngsamg.apps.elasticity import ElasticityEnergy
+    from ngsamg.coarsen.pairwise import (
         big_soc_vet,
         spw_aggregate_energy,
     )
@@ -830,13 +829,13 @@ def test_big_soc_acceptance_check():
     # one coarsening round, then vet the SECOND round's matches directly
     v2c, n1 = spw_aggregate_energy(en, mesh, rounds=1, theta=0.08,
                                    adopt_orphans=False)
-    from ngsamg_tpu.mesh.topo import map_edges
+    from ngsamg.mesh.topo import map_edges
 
     ce, e2ce = map_edges(mesh, v2c, n1)
     cmesh = en.map_data(mesh, v2c, n1, ce, e2ce)
     soc = en.soc_robust(cmesh)
     S = cmesh.edge_graph(weights=soc)
-    from ngsamg_tpu.coarsen.pairwise import handshake_match
+    from ngsamg.coarsen.pairwise import handshake_match
 
     partner = handshake_match(S, 0.08, can_match=np.ones(n1, bool))
     n_matched = int((partner >= 0).sum())
@@ -868,7 +867,7 @@ def test_big_soc_acceptance_check():
 
     # end-to-end: the knob is wired through options, the factory builds
     # a real hierarchy with the vet active, and the solve converges
-    from ngsamg_tpu import AMGOptions, AMGPreconditioner
+    from ngsamg import AMGOptions, AMGPreconditioner
 
     pe = fem.unstructured_elasticity(14, dim=2)
     opts = AMGOptions()
@@ -909,7 +908,7 @@ def test_bell_column_chunked_spmv(bs, C):
 
 def test_native_bsr_mm_matches_scipy():
     """Native block-sparse Gustavson product == scipy scalar product."""
-    import ngsamg_tpu.native as nat
+    import ngsamg.native as nat
 
     if not nat.HAVE_NATIVE:
         pytest.skip("native extension not built")
@@ -936,7 +935,7 @@ def test_native_bsr_mm_matches_scipy():
 def test_block_rap_matches_scalar():
     """rap(bs_r, bs_c) block route (rectangular 3x6 + square 6x6
     bsr_mm composition) == the scalar kernel."""
-    import ngsamg_tpu.native as nat
+    import ngsamg.native as nat
 
     if not nat.HAVE_NATIVE:
         pytest.skip("native extension not built")

@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from ngsamg_tpu import AMGOptions, SpecOpt
-from ngsamg_tpu.apps.h1 import H1Energy
-from ngsamg_tpu.config import CoarsenType
-from ngsamg_tpu.factory.levels import setup_levels
-from ngsamg_tpu.parallel.dist_setup import dist_setup_levels
-from ngsamg_tpu.utils import fem
+from ngsamg import AMGOptions, SpecOpt
+from ngsamg.apps.h1 import H1Energy
+from ngsamg.config import CoarsenType
+from ngsamg.factory.levels import setup_levels
+from ngsamg.parallel.dist_setup import dist_setup_levels
+from ngsamg.utils import fem
 
 
 def _opts():
@@ -73,8 +73,8 @@ def test_dist_vector_h1_matches_serial_aggregates():
         if i:
             assert sl.A.nnz == dl.A.nnz, f"level {i}"
     # and the hierarchy solves
-    from ngsamg_tpu import AMGPreconditioner
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
+    from ngsamg import AMGPreconditioner
+    from ngsamg.config import SmootherOptions, SmootherType
 
     opts2 = _opts()
     opts2.smoother = SmootherOptions(type=SmootherType.CHEBYSHEV)
@@ -93,7 +93,7 @@ def test_dist_elasticity_equals_serial(n_shards):
     matching, transported coarse energies, block smoothed prolongation and
     the embedding fold must reproduce the serial hierarchy — same
     aggregates per level, coarse operators to fp roundoff."""
-    from ngsamg_tpu.apps.elasticity import ElasticityEnergy
+    from ngsamg.apps.elasticity import ElasticityEnergy
 
     prob = fem.unstructured_elasticity(10, dim=2)
     opts = _opts()
@@ -120,8 +120,8 @@ def test_dist_elasticity_equals_serial(n_shards):
 
 def test_dist_elasticity_hierarchy_solves():
     """The distributed elasticity hierarchy plugs into the device solve."""
-    from ngsamg_tpu import AMGPreconditioner
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
+    from ngsamg import AMGPreconditioner
+    from ngsamg.config import SmootherOptions, SmootherType
 
     prob = fem.unstructured_elasticity(9, dim=2)
     opts = _opts()
@@ -137,8 +137,8 @@ def test_dist_elasticity_hierarchy_solves():
 
 def test_dist_hierarchy_solves():
     """The distributed-setup hierarchy plugs into the device solve."""
-    from ngsamg_tpu import AMGPreconditioner
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
+    from ngsamg import AMGPreconditioner
+    from ngsamg.config import SmootherOptions, SmootherType
 
     prob = fem.unstructured_poisson(24, dim=2)
     opts = _opts()
@@ -165,7 +165,7 @@ def test_collective_transport_parity():
     """
     import jax
 
-    from ngsamg_tpu.parallel.transport import (
+    from ngsamg.parallel.transport import (
         CollectiveTransport,
         use_transport,
     )
@@ -214,7 +214,7 @@ def test_try_contract_step_in_loop():
     itself decides to concentrate coarse levels onto fewer shards —
     earlier under slow coarsening — logging each decision; ownership
     changes, values don't."""
-    from ngsamg_tpu.parallel.dist_setup import (
+    from ngsamg.parallel.dist_setup import (
         _scalar_levels_parts,
         split_rows,
     )
@@ -278,7 +278,7 @@ def test_try_contract_under_mp_transport():
     active group keep participating with empty ranges (the reference's
     idle dropped ranks) and the hierarchy equals the single-controller
     one bitwise."""
-    from ngsamg_tpu.parallel.mp_runtime import mp_dist_setup_levels
+    from ngsamg.parallel.mp_runtime import mp_dist_setup_levels
 
     prob = fem.unstructured_poisson(24, dim=2)
     A = prob.A.tocsr()

@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from ngsamg_tpu import AMGOptions, SpecOpt
-from ngsamg_tpu.apps import stokes as st
-from ngsamg_tpu.config import ProlType
-from ngsamg_tpu.parallel.dist_stokes import dist_stokes_levels
-from ngsamg_tpu.precond.stokes import StokesAMG
-from ngsamg_tpu.utils.stokes_fem import stokes_cr, stokes_tri
+from ngsamg import AMGOptions, SpecOpt
+from ngsamg.apps import stokes as st
+from ngsamg.config import ProlType
+from ngsamg.parallel.dist_stokes import dist_stokes_levels
+from ngsamg.precond.stokes import StokesAMG
+from ngsamg.utils.stokes_fem import stokes_cr, stokes_tri
 
 
 def _serial_levels(prob, opts):
@@ -215,8 +215,8 @@ def test_dist_stokes_vector_solve_end_to_end():
 def test_dist_stokes_hdiv_parity():
     """Distributed HDiv setup (variable facet DOFs + preserved vectors)
     reproduces the serial hierarchy; preservation stays exact."""
-    from ngsamg_tpu.precond.stokes import StokesHDivAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_tri_hdiv
+    from ngsamg.precond.stokes import StokesHDivAMG
+    from ngsamg.utils.stokes_fem import stokes_tri_hdiv
 
     p, counts, V = stokes_tri_hdiv(8, dim=2, alpha=10.0)
 
@@ -270,7 +270,7 @@ def test_dist_stokes_collective_transport_parity():
     arithmetic is identical)."""
     import jax
 
-    from ngsamg_tpu.parallel.transport import (
+    from ngsamg.parallel.transport import (
         CollectiveTransport,
         use_transport,
     )

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 
 from amg_utils import solve_and_check
-from ngsamg_tpu import AMGOptions
-from ngsamg_tpu.apps.elasticity import ElasticityEnergy
-from ngsamg_tpu.utils import fem
+from ngsamg import AMGOptions
+from ngsamg.apps.elasticity import ElasticityEnergy
+from ngsamg.utils import fem
 
 
 def _opts(**kw):
@@ -80,7 +80,7 @@ def test_rbm_preserved_through_hierarchy():
     correctly breaks RBM preservation, as in the reference).
     """
     p = fem.elasticity_2d(8, length=6)
-    pc = __import__("ngsamg_tpu").AMGPreconditioner(
+    pc = __import__("ngsamg").AMGPreconditioner(
         p.A,
         energy="elasticity",
         block_size=2,
@@ -123,10 +123,10 @@ def test_elast_2d_jump():
     asserts the preconditioned CG error instead (amg_utils.py:361). The
     oracle here: 1e-8 requested, iteration budget held, true residual at
     the floor."""
-    import ngsamg_tpu
+    import ngsamg
 
     p = fem.elasticity_2d(10, length=10, jump=True)
-    pc = ngsamg_tpu.AMGPreconditioner(
+    pc = ngsamg.AMGPreconditioner(
         p.A, energy="elasticity", block_size=2, coords=p.coords,
         options=_opts(),
     ).setup()
@@ -157,7 +157,7 @@ def test_elast_3d_unstructured():
 def test_robust_matching_default_and_device_wiring():
     """Elasticity coarsening defaults to robust (EVP) matching, and large
     batches route through the device pencil solver (ops/batched_la)."""
-    import ngsamg_tpu.apps.elasticity as el
+    import ngsamg.apps.elasticity as el
 
     assert el.ElasticityEnergy(2).default_robust
     p = fem.elasticity_2d(6, length=6)
@@ -176,9 +176,9 @@ def test_robust_matching_default_and_device_wiring():
 
 def test_aaf_goal_driven_coarsening():
     """aaf/first_aaf goal factors drive the pairwise rounds."""
-    import ngsamg_tpu.factory.levels as L
-    from ngsamg_tpu import AMGPreconditioner
-    from ngsamg_tpu.config import CoarsenType, SpecOpt
+    import ngsamg.factory.levels as L
+    from ngsamg import AMGPreconditioner
+    from ngsamg.config import CoarsenType, SpecOpt
 
     p = fem.poisson_2d(48)
     o = _opts()

@@ -4,8 +4,8 @@ GetRotationOfBF (VERDICT r1 missing #8)."""
 import numpy as np
 import scipy.sparse as sp
 
-from ngsamg_tpu import AMGOptions, AMGPreconditioner
-from ngsamg_tpu.utils import fem
+from ngsamg import AMGOptions, AMGPreconditioner
+from ngsamg.utils import fem
 
 
 def test_nodalp2_two_parent_embedding():
@@ -82,7 +82,7 @@ def test_partial_dirichlet_scalfreerows():
 
 def test_dyn_block_smoother():
     """Dyn-block GS: structural row fusion + colored block sweeps."""
-    from ngsamg_tpu.smoothers.block import dyn_blocks
+    from ngsamg.smoothers.block import dyn_blocks
 
     # elasticity: a vertex's displacement rows share their column
     # structure (full coupling blocks) and fuse into one block
@@ -92,7 +92,7 @@ def test_dyn_block_smoother():
     assert sizes.max() >= 2  # the 2 component rows of a vertex fuse
     assert sum(sizes) == p.A.shape[0]
     # V-cycle with the dyn-block smoother converges (scalar H1 hierarchy)
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
+    from ngsamg.config import SmootherOptions, SmootherType
 
     p2 = fem.poisson_2d(32)
     opts = AMGOptions(dtype="float64")
@@ -102,7 +102,7 @@ def test_dyn_block_smoother():
     r = np.linalg.norm(p2.A @ x - p2.b) / np.linalg.norm(p2.b)
     assert info.converged and r < 1e-7, (info.iterations, r)
     # standalone export (reference CreateDynBlockSmoother)
-    import ngsamg_tpu.api as NgsAMG
+    import ngsamg.api as NgsAMG
 
     smh = NgsAMG.CreateDynBlockSmoother(p.A)
     rng = np.random.default_rng(0)
@@ -131,7 +131,7 @@ def test_deep_f32_hierarchy():
 def test_utils_and_map_exports():
     """SparseMM / ToSparseMatrix / AMGBFCheck / DOFMap step objects
     (reference python_utils.cpp + python_coarse.cpp surface)."""
-    import ngsamg_tpu.api as NgsAMG
+    import ngsamg.api as NgsAMG
 
     p = fem.poisson_2d(24)
     pc = NgsAMG.h1_scal(p.A, coords=p.coords)
@@ -164,7 +164,7 @@ def test_utils_and_map_exports():
 
 def test_get_rotation_of_bf():
     """Coarse-BF rotations via the pre-embedding prolongation."""
-    import ngsamg_tpu.api as NgsAMG
+    import ngsamg.api as NgsAMG
 
     p = fem.elasticity_2d(8, length=6)
     o = AMGOptions(dtype="float64")
@@ -196,9 +196,9 @@ def test_api_lifecycle_and_regularize():
     elasticity_pc_impl.hpp:139)."""
     import numpy as np
 
-    from ngsamg_tpu.api import RegularizeMatrix, h1_scal
-    from ngsamg_tpu.sparse.host import block_diagonal_fast
-    from ngsamg_tpu.utils import fem
+    from ngsamg.api import RegularizeMatrix, h1_scal
+    from ngsamg.sparse.host import block_diagonal_fast
+    from ngsamg.utils import fem
 
     p = fem.poisson_2d(24)
     pc = h1_scal(None)

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 
 from amg_utils import solve_and_check
-from ngsamg_tpu import AMGOptions, CycleType, SpecOpt
-from ngsamg_tpu.utils import fem
+from ngsamg import AMGOptions, CycleType, SpecOpt
+from ngsamg.utils import fem
 
 
 def test_2d_lo():
@@ -73,7 +73,7 @@ def test_vec_h1_compound_layout():
     import numpy as np
     import scipy.sparse as sp
 
-    from ngsamg_tpu import AMGPreconditioner
+    from ngsamg import AMGPreconditioner
 
     base = fem.poisson_2d(24)
     bs, nv = 2, base.n
@@ -125,8 +125,8 @@ def test_amg_as_coarse_component():
     preconditioner whose coarse solve is the AMG operator via AMGSmoother."""
     import numpy as np
 
-    from ngsamg_tpu import AMGPreconditioner
-    from ngsamg_tpu.utils import fem
+    from ngsamg import AMGPreconditioner
+    from ngsamg.utils import fem
 
     p = fem.poisson_2d(48)
     pc = AMGPreconditioner(p.A, coords=p.coords).setup()
@@ -160,7 +160,7 @@ def test_amg_as_coarse_component():
 
 def test_bf16_device_dtype():
     """bfloat16 device compute + f64 defect correction reaches 1e-8."""
-    from ngsamg_tpu import AMGOptions
+    from ngsamg import AMGOptions
 
     prob = fem.poisson_3d(12)
     solve_and_check(prob, ms=100, options=AMGOptions(dtype="bfloat16"))

@@ -11,12 +11,12 @@ summation order identical).
 import numpy as np
 import pytest
 
-from ngsamg_tpu import AMGOptions, SpecOpt
-from ngsamg_tpu.apps.h1 import H1Energy
-from ngsamg_tpu.config import CoarsenType
-from ngsamg_tpu.parallel.dist_setup import dist_setup_levels
-from ngsamg_tpu.parallel.mp_runtime import mp_dist_setup_levels
-from ngsamg_tpu.utils import fem
+from ngsamg import AMGOptions, SpecOpt
+from ngsamg.apps.h1 import H1Energy
+from ngsamg.config import CoarsenType
+from ngsamg.parallel.dist_setup import dist_setup_levels
+from ngsamg.parallel.mp_runtime import mp_dist_setup_levels
+from ngsamg.utils import fem
 
 
 def _opts():
@@ -135,8 +135,8 @@ def test_mp_elasticity_bitwise_equals_single_controller(n_ranks):
     bitwise-equal to the single-controller run — the reference drives
     elasticity with the same distributed machinery as scalar H1
     (reducetable.hpp:22-949, elasticity.hpp:58-98)."""
-    from ngsamg_tpu.apps.elasticity import ElasticityEnergy
-    from ngsamg_tpu.parallel.dist_elast import dist_setup_levels_elast
+    from ngsamg.apps.elasticity import ElasticityEnergy
+    from ngsamg.parallel.dist_elast import dist_setup_levels_elast
 
     prob = fem.unstructured_elasticity(12, dim=2)
     A = prob.A.tocsr()
@@ -173,7 +173,7 @@ def test_mp_elasticity_shard_residency():
     """Each elasticity rank's resident level-loop state is a shard of the
     problem, and doubling ranks shrinks it — block-energy setup is now
     genuinely shard-resident like the scalar loop."""
-    from ngsamg_tpu.apps.elasticity import ElasticityEnergy
+    from ngsamg.apps.elasticity import ElasticityEnergy
 
     prob = fem.unstructured_elasticity(16, dim=2)
     A = prob.A.tocsr()
@@ -206,11 +206,11 @@ def test_mp_stokes_equals_single_controller(bs):
     (`dist_stokes._stokes_levels_parts` under MPTransport): per-rank
     cell/facet slices only, hierarchy equal to the single-controller run
     (operators/prolongations/loop basis)."""
-    from ngsamg_tpu.config import ProlType
-    from ngsamg_tpu.parallel.dist_stokes import dist_stokes_levels
-    from ngsamg_tpu.parallel.mp_runtime import mp_dist_stokes_levels
-    from ngsamg_tpu.precond.stokes import StokesAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_cr, stokes_tri
+    from ngsamg.config import ProlType
+    from ngsamg.parallel.dist_stokes import dist_stokes_levels
+    from ngsamg.parallel.mp_runtime import mp_dist_stokes_levels
+    from ngsamg.precond.stokes import StokesAMG
+    from ngsamg.utils.stokes_fem import stokes_cr, stokes_tri
 
     if bs == 1:
         p, _ = stokes_tri(10, dim=2, alpha=10.0)
@@ -267,10 +267,10 @@ def test_mp_stokes_hdiv_equals_single_controller():
     batched per-owner collectives): hierarchy equal to the
     single-controller run — completing the rank-local coverage of every
     distributed energy."""
-    from ngsamg_tpu.parallel.dist_stokes import dist_stokes_hdiv_levels
-    from ngsamg_tpu.parallel.mp_runtime import mp_dist_stokes_hdiv_levels
-    from ngsamg_tpu.precond.stokes import StokesHDivAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_tri_hdiv
+    from ngsamg.parallel.dist_stokes import dist_stokes_hdiv_levels
+    from ngsamg.parallel.mp_runtime import mp_dist_stokes_hdiv_levels
+    from ngsamg.precond.stokes import StokesHDivAMG
+    from ngsamg.utils.stokes_fem import stokes_tri_hdiv
 
     p, counts, V = stokes_tri_hdiv(8, dim=2, alpha=10.0)
     o = AMGOptions()

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from ngsamg_tpu import native
-from ngsamg_tpu.apps.elasticity import ElasticityEnergy
-from ngsamg_tpu.mesh.topo import AlgebraicMesh
+from ngsamg import native
+from ngsamg.apps.elasticity import ElasticityEnergy
+from ngsamg.mesh.topo import AlgebraicMesh
 
 pytestmark = pytest.mark.skipif(
     not native.HAVE_NATIVE, reason="native extension not built"
@@ -75,7 +75,7 @@ def _random_block_prol(rng, nf, ncv, d):
 def test_truncate_prol_blocks_matches_numpy():
     """Native truncation == the padded numpy pipeline: identical
     structure, values to FMA tolerance, for the rigid transport."""
-    from ngsamg_tpu.transfer import prolongation as tp
+    from ngsamg.transfer import prolongation as tp
 
     rng = np.random.default_rng(3)
     en = ElasticityEnergy(3, rot_scale=2.0)
@@ -120,8 +120,8 @@ def test_elast_ahat_bsr_matches_pipeline():
 
 
 def test_rho_power_matches_numpy_power_iteration():
-    from ngsamg_tpu.smoothers.build import _lam_max_estimate
-    from ngsamg_tpu.sparse.host import block_diagonal_fast
+    from ngsamg.smoothers.build import _lam_max_estimate
+    from ngsamg.sparse.host import block_diagonal_fast
 
     rng = np.random.default_rng(5)
     n = 120

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from ngsamg_tpu.coarsen.lattice import detect_lattice
-from ngsamg_tpu.transfer import stencil as st
-from ngsamg_tpu.transfer.galerkin import rap
-from ngsamg_tpu.transfer.lattice_transfer import host_lattice_prol
-from ngsamg_tpu.utils import fem
+from ngsamg.coarsen.lattice import detect_lattice
+from ngsamg.transfer import stencil as st
+from ngsamg.transfer.galerkin import rap
+from ngsamg.transfer.lattice_transfer import host_lattice_prol
+from ngsamg.utils import fem
 
 
 def _ref_rap(prob, omega):
@@ -113,8 +113,8 @@ def test_clamped_hierarchy_exact(n):
 
 def test_fast_path_matches_generic_iterations():
     """Stencil hierarchy (prune off) == generic lattice path convergence."""
-    from ngsamg_tpu import AMGOptions, AMGPreconditioner
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
+    from ngsamg import AMGOptions, AMGPreconditioner
+    from ngsamg.config import SmootherOptions, SmootherType
 
     prob = fem.poisson_3d(16)
     iters = {}
@@ -138,8 +138,8 @@ def test_anisotropic_lattice_no_crash():
     identity dims lose their constant middle at coarse levels."""
     import scipy.sparse as sp2
 
-    from ngsamg_tpu import AMGOptions, AMGPreconditioner
-    from ngsamg_tpu.config import SmootherOptions, SmootherType
+    from ngsamg import AMGOptions, AMGPreconditioner
+    from ngsamg.config import SmootherOptions, SmootherType
 
     m0, m1 = 4, 12000  # n > 32768 enters the clamped path
     T = lambda k: sp2.diags(
@@ -190,7 +190,7 @@ def test_from_csr_sums_duplicates():
 
 def test_fast_path_gating():
     """Jumpy coefficients and GS smoothers must avoid the fast path."""
-    from ngsamg_tpu import AMGOptions, AMGPreconditioner
+    from ngsamg import AMGOptions, AMGPreconditioner
 
     prob = fem.poisson_3d(10, jump=True)
     pc = AMGPreconditioner(prob.A, coords=prob.coords).setup()
@@ -216,11 +216,11 @@ def test_refine_residual_slabbed_matches_plain():
     import jax
     import jax.numpy as jnp
 
-    from ngsamg_tpu.precond.amg import (
+    from ngsamg.precond.amg import (
         _refine_residual,
         _refine_residual_slabbed,
     )
-    from ngsamg_tpu.sparse import formats
+    from ngsamg.sparse import formats
 
     rng = np.random.default_rng(0)
     with jax.enable_x64(True):

@@ -7,11 +7,11 @@ invariants plus convergence budgets on MAC grad-div velocity systems.
 
 import numpy as np
 
-from ngsamg_tpu import AMGOptions
-from ngsamg_tpu.apps import stokes as st
-from ngsamg_tpu.mesh.topo import map_edges
-from ngsamg_tpu.precond.stokes import StokesAMG
-from ngsamg_tpu.utils.stokes_fem import stokes_mac_2d
+from ngsamg import AMGOptions
+from ngsamg.apps import stokes as st
+from ngsamg.mesh.topo import map_edges
+from ngsamg.precond.stokes import StokesAMG
+from ngsamg.utils.stokes_fem import stokes_mac_2d
 
 
 def _pipeline(n=8, alpha=10.0):
@@ -71,7 +71,7 @@ def test_prolongation_div_exact_varying_flows():
     """D_f P = Frac D_c holds EXACTLY on simplicial meshes (varying facet
     areas) — the flux-coordinate conjugation of flow_prolongation; the
     incidence-unit construction alone is exact only for constant flows."""
-    from ngsamg_tpu.utils.stokes_fem import stokes_tri
+    from ngsamg.utils.stokes_fem import stokes_tri
 
     p, _n = stokes_tri(10, dim=2)
     mesh, _ = st.build_dual_mesh(
@@ -116,7 +116,7 @@ def test_tree_loops_span_kernel_off_lattice():
     mesh, _ = st.build_dual_mesh(
         pos, p.cell_vol, p.facet_cells, p.facet_flow
     )
-    from ngsamg_tpu.coarsen.lattice import detect_lattice
+    from ngsamg.coarsen.lattice import detect_lattice
 
     assert detect_lattice(mesh.vertex_data["pos"]) is None
     C = st.build_loops(mesh)
@@ -129,7 +129,7 @@ def test_tree_loops_span_kernel_off_lattice():
 def test_stokes_off_lattice_hiptmair_every_level():
     """Perturbed-mesh Stokes converges with Hiptmair on EVERY smoothed
     level (VERDICT r1 #7: loops must survive off-lattice + coarsening)."""
-    from ngsamg_tpu.smoothers.hiptmair import HiptmairSmoother
+    from ngsamg.smoothers.hiptmair import HiptmairSmoother
 
     p = stokes_mac_2d(16, alpha=10.0)
     rng = np.random.default_rng(7)
@@ -195,7 +195,7 @@ def test_stokes_alpha_robustness():
 
 
 def test_stokes_3d():
-    from ngsamg_tpu.utils.stokes_fem import stokes_mac_3d
+    from ngsamg.utils.stokes_fem import stokes_mac_3d
 
     p = stokes_mac_3d(8, alpha=10.0)
     mesh, _ = st.build_dual_mesh(
@@ -222,7 +222,7 @@ def test_stokes_simplicial_2d():
     vary, the dual graph is irregular — exercises flow-scaled loops, SPW
     cell coarsening and the geometric divergence end to end (the
     reference's simplicial NC/HDiv facet spaces, src/stokes/)."""
-    from ngsamg_tpu.utils.stokes_fem import stokes_tri
+    from ngsamg.utils.stokes_fem import stokes_tri
 
     p, normals = stokes_tri(16, dim=2, alpha=10.0)
     mesh, _ = st.build_dual_mesh(
@@ -249,7 +249,7 @@ def test_stokes_simplicial_2d():
 
 def test_stokes_simplicial_3d():
     """Tet-mesh facet-flux Stokes (3D unstructured)."""
-    from ngsamg_tpu.utils.stokes_fem import stokes_tri
+    from ngsamg.utils.stokes_fem import stokes_tri
 
     p, normals = stokes_tri(6, dim=3, alpha=10.0)
     opts = AMGOptions()
@@ -274,7 +274,7 @@ def test_cr_vector_stokes_invariants():
     Invariants: vector loop basis spans ker(D) exactly; constant velocity
     fields prolongate exactly away from the no-slip boundary; div-free
     coarse fields prolongate div-free."""
-    from ngsamg_tpu.utils.stokes_fem import stokes_cr
+    from ngsamg.utils.stokes_fem import stokes_cr
 
     dim = 2
     p, normals = stokes_cr(10, dim=dim, alpha=10.0)
@@ -313,8 +313,8 @@ def test_cr_vector_stokes_invariants():
 def test_cr_vector_stokes_solve():
     """CR vector Stokes AMG converges, alpha-robustly (the tangential
     columns of the vector pot space: 324 -> ~60 iters at alpha=1e3)."""
-    import ngsamg_tpu.api as NgsAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_cr
+    import ngsamg.api as NgsAMG
+    from ngsamg.utils.stokes_fem import stokes_cr
 
     iters = {}
     for alpha in (10.0, 1000.0):
@@ -339,8 +339,8 @@ def test_cr_vector_stokes_solve():
 
 
 def test_cr_vector_stokes_3d():
-    from ngsamg_tpu.precond.stokes import StokesAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_cr
+    from ngsamg.precond.stokes import StokesAMG
+    from ngsamg.utils.stokes_fem import stokes_cr
 
     p, _ = stokes_cr(5, dim=3, alpha=10.0)
     opts = AMGOptions()
@@ -362,8 +362,8 @@ def test_cr_vector_stokes_3d():
 def test_hdiv_stokes_simplicial():
     """HDiv-variant AMG (variable dofs + preserved vectors) on a real
     triangle mesh: normal/tangential facet frames from the geometry."""
-    import ngsamg_tpu.api as NgsAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_tri_hdiv
+    import ngsamg.api as NgsAMG
+    from ngsamg.utils.stokes_fem import stokes_tri_hdiv
 
     p, counts, V = stokes_tri_hdiv(14, alpha=10.0)
     assert counts.min() == 1 and counts.max() == 2  # variable dof counts
@@ -389,8 +389,8 @@ def test_hdiv_stokes_simplicial_3d():
     """Tet-mesh HDiv variant: variable counts (1 or 3 dofs/facet),
     preserved constants in geometric normal/tangent frames
     (stokes_hdiv_gg_3d export)."""
-    import ngsamg_tpu.api as NgsAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_tri_hdiv
+    import ngsamg.api as NgsAMG
+    from ngsamg.utils.stokes_fem import stokes_tri_hdiv
 
     p, counts, V = stokes_tri_hdiv(5, dim=3, alpha=10.0)
     assert counts.min() == 1 and counts.max() == 3
@@ -415,8 +415,8 @@ def test_hdg_embedded_stokes():
     """Static-condensed P1-HDG facet system through the aux embedding:
     the reference's HDiv-HDG + secondary-sequence pattern
     (hdiv_hdg_embedding.hpp) with a REAL higher-order facet FE source."""
-    import ngsamg_tpu.api as NgsAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_hdg_p1
+    import ngsamg.api as NgsAMG
+    from ngsamg.utils.stokes_fem import stokes_hdg_p1
 
     S, b, E, geo = stokes_hdg_p1(12, alpha=10.0)
     # E: constant aux vector -> equal nodal traces
@@ -437,8 +437,8 @@ def test_hdg_embedded_stokes():
 
 def test_hdg_embedded_stokes_3d():
     """Tet-mesh condensed P1-HDG (9 dofs/facet) through the embedding."""
-    import ngsamg_tpu.api as NgsAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_hdg_p1
+    import ngsamg.api as NgsAMG
+    from ngsamg.utils.stokes_fem import stokes_hdg_p1
 
     S, b, E, geo = stokes_hdg_p1(5, alpha=10.0, dim=3)
     opts = AMGOptions()
@@ -453,13 +453,13 @@ def test_hdg_embedded_stokes_3d():
 def test_hdiv_preserved_vectors_exact():
     """Preserved vectors stay exactly representable: P @ V_c == V_f
     (preserved_vectors.hpp computeCoarseBasis semantics)."""
-    from ngsamg_tpu.apps.stokes_hdiv import (
+    from ngsamg.apps.stokes_hdiv import (
         MeshDOFs,
         PreservedVectors,
         preserved_prolongation,
     )
-    from ngsamg_tpu.mesh.topo import map_edges
-    from ngsamg_tpu.utils.stokes_fem import stokes_mac_2d_hdiv
+    from ngsamg.mesh.topo import map_edges
+    from ngsamg.utils.stokes_fem import stokes_mac_2d_hdiv
 
     p, counts, V = stokes_mac_2d_hdiv(12)
     mesh, _ = st.build_dual_mesh(
@@ -511,8 +511,8 @@ def test_hdiv_preserved_vectors_exact():
 
 def test_hdiv_stokes_solve():
     """HDiv-variant AMG converges on the variable-dof facet system."""
-    import ngsamg_tpu.api as NgsAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_mac_2d_hdiv
+    import ngsamg.api as NgsAMG
+    from ngsamg.utils.stokes_fem import stokes_mac_2d_hdiv
 
     p, counts, V = stokes_mac_2d_hdiv(16, alpha=10.0)
     opts = AMGOptions()
@@ -534,8 +534,8 @@ def test_hdiv_stokes_solve():
 
 
 def test_stokes_api_export():
-    import ngsamg_tpu.api as NgsAMG
-    from ngsamg_tpu.utils.stokes_fem import stokes_mac_2d
+    import ngsamg.api as NgsAMG
+    from ngsamg.utils.stokes_fem import stokes_mac_2d
 
     p = stokes_mac_2d(16, alpha=10.0)
     pc = NgsAMG.stokes_gg_2d(

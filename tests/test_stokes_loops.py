@@ -14,11 +14,11 @@ import numpy as np
 import scipy.sparse as sp
 import pytest
 
-from ngsamg_tpu import AMGOptions, SpecOpt
-from ngsamg_tpu.apps import stokes as st
-from ngsamg_tpu.mesh.topo import map_edges
-from ngsamg_tpu.precond.stokes import StokesAMG, _truncate_columns
-from ngsamg_tpu.utils.stokes_fem import stokes_tri
+from ngsamg import AMGOptions, SpecOpt
+from ngsamg.apps import stokes as st
+from ngsamg.mesh.topo import map_edges
+from ngsamg.precond.stokes import StokesAMG, _truncate_columns
+from ngsamg.utils.stokes_fem import stokes_tri
 
 
 def _geo_setup(n, dim, alpha=10.0, **opt_kw):
@@ -148,7 +148,7 @@ def test_truncate_columns():
 
 def test_vector_cr_geometric_loops():
     """The CR (vector facet dof) path lifts the same incidence cycles."""
-    from ngsamg_tpu.utils.stokes_fem import stokes_cr
+    from ngsamg.utils.stokes_fem import stokes_cr
 
     sprob, _ = stokes_cr(10, dim=2, alpha=100.0)
     sopts = AMGOptions()
@@ -172,7 +172,7 @@ def test_vector_cr_geometric_loops():
 
 
 def test_api_wrapper_threads_loop_geometry():
-    from ngsamg_tpu import api as NgsAMG
+    from ngsamg import api as NgsAMG
 
     sprob, _ = stokes_tri(14, dim=2, alpha=100.0)
     pc = NgsAMG.stokes_gg_2d(

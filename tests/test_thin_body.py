@@ -10,10 +10,10 @@ with high-aspect-ratio elements. These tests exercise that regime.
 import numpy as np
 import pytest
 
-from ngsamg_tpu import AMGOptions, AMGPreconditioner, SpecOpt
-from ngsamg_tpu.apps.elasticity import ElasticityEnergy
-from ngsamg_tpu.config import CoarsenType, SmootherOptions, SmootherType
-from ngsamg_tpu.utils import fem
+from ngsamg import AMGOptions, AMGPreconditioner, SpecOpt
+from ngsamg.apps.elasticity import ElasticityEnergy
+from ngsamg.config import CoarsenType, SmootherOptions, SmootherType
+from ngsamg.utils import fem
 
 
 def _plate(n=14, thickness=0.08):
@@ -46,8 +46,8 @@ def test_neib_boost_degeneracy():
     fine tangents: the bare min eigenvalue on range(C) is then identically
     ~0 for every edge, and only the common-neighbor path accumulation
     (AddNeibBoost, agglomerator_utils.hpp:600-667) makes it usable."""
-    from ngsamg_tpu.coarsen.pairwise import spw_aggregate_energy
-    from ngsamg_tpu.mesh.topo import map_edges
+    from ngsamg.coarsen.pairwise import spw_aggregate_energy
+    from ngsamg.mesh.topo import map_edges
 
     prob = _plate(n=10)
     en = ElasticityEnergy(dim=3)
